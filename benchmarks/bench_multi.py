@@ -1,8 +1,10 @@
 """BASELINE configs 3-5 (CI-scale): N-genome multiple alignment wall-clock.
 
 Synthetic ancestor-derived genomes (size/count configurable) through the
-concurrent executor; reports genome-pairs/s and end-to-end wall.  Run on
-one chip, or with -j workers to observe bounded-slot scaling.
+concurrent executor; reports genome-pairs/s and end-to-end wall on one
+GPU, naming the device and the card.  Without a GPU it fails.
+
+Run:  python benchmarks/bench_multi.py -n 8 -size 500000 -j 4
 """
 import argparse
 import json
@@ -39,6 +41,17 @@ def main():
     ap.add_argument("-chunk", type=int, default=8, help="pairs per device dispatch")
     args = ap.parse_args()
 
+    from bench import card_info
+
+    card = card_info()
+    import jax
+
+    from paramugsy_tpu.utils.cache import enable_compilation_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench_multi measures a GPU; JAX found {dev.platform}")
+    enable_compilation_cache()
     genomes = build_genomes(args.n, args.size)
     cfg = PipelineConfig()
     tree = Aligner(genomes, cfg).job_tree()
@@ -60,10 +73,16 @@ def main():
             "genomes": args.n,
             "genome_bp": args.size,
             "pairs": n_pairs,
-            "wall_s": round(dt, 2),
+            "wall_s": dt,
             "chunk": args.chunk,
             "blocks": len(blocks),
             "coverage_faults": len(faults),
+            "device": {
+                "platform": dev.platform,
+                "kind": dev.device_kind,
+                "count": len(jax.devices()),
+            },
+            "card": card,
         },
     }))
 

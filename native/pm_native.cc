@@ -3,7 +3,7 @@
 // The reference keeps its hot coordinate/alignment paths in C++
 // (lib/m_translate/m_translate.cc — the production rewrite of the OCaml
 // translate; lib/profiles_lib/* streaming parsers).  This library plays the
-// same role for the TPU-era pipeline: the host-side work that is not worth
+// same role here: the host-side work that is not worth
 // a device round trip — batched Needleman-Wunsch gap extension with
 // traceback, and the column-walk helpers — implemented natively and loaded
 // through ctypes (no pybind11 dependency).
@@ -256,7 +256,8 @@ void pm_chain_clusters(const int64_t* rs, const int64_t* re,
   }
 }
 
-// Traceback over the TPU wavefront kernel's packed direction buffer.
+// Traceback over the device wavefront's packed direction buffer
+// (paramugsy_tpu/ops/wavefront.py).
 //   dirs:   [steps16, batch, width] int32; step d (1-based) of pair p lane
 //           w is bits 2*((d-1)%16) of dirs[(d-1)/16][p][w].
 //   a_len/b_len: [n_pairs] segment lengths (n_pairs <= batch).

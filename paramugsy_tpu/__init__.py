@@ -1,9 +1,9 @@
-"""paramugsy_tpu: TPU-native whole-genome multiple alignment.
+"""paramugsy_tpu: whole-genome multiple alignment on GPUs with JAX.
 
-A from-scratch, TPU-first framework with the capabilities of paramugsy
+A from-scratch framework with the capabilities of paramugsy
 (a distributed orchestrator for the Mugsy whole-genome aligner): guide-tree
 driven hierarchical alignment of many genomes, pairwise MUM seeding + anchor
-chaining + banded extension on-device (JAX / Pallas), profile
+chaining + banded extension on-device (JAX), profile
 translate/untranslate coordinate algebra for tree-structured merging, and a
 complete MAF toolchain.
 
@@ -17,7 +17,7 @@ Layer map (mirrors SURVEY.md section 1 of the reference analysis):
     coords       - profile/range/translate     [ref L0: lib/profiles*, lib/m_translate]
     formats      - FASTA/MAF/delta/XMFA IO     [ref L0: lib/maf, lib/fasta]
     tools        - MAF toolchain               [ref aux: mafstat/mafvalidate/...]
-    parallel     - mesh + sharding helpers     [ref infra: SGE/rsync -> ICI collectives]
+    parallel     - mesh + sharding helpers     [ref infra: SGE/rsync -> device collectives]
 """
 
 __version__ = "0.1.0"

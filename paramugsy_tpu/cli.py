@@ -57,8 +57,9 @@ def _align_main(argv: list[str]) -> int:
     ap.add_argument(
         "-distributed",
         action="store_true",
-        help="join the jax.distributed world; pairs partition across hosts "
-        "sharing -tmp_dir",
+        help="join the jax.distributed world (JAX_COORDINATOR_ADDRESS, "
+        "JAX_NUM_PROCESSES, JAX_PROCESS_ID); pairs partition across "
+        "processes sharing -tmp_dir, one card each on a shared host",
     )
     ap.add_argument(
         "-tree", help="Newick guide-tree file (leaf names = genome names); "
@@ -393,11 +394,23 @@ _DEVICE_COMMANDS = {"align", "local", "sge", "nucmer", "repeats", "mugsy"}
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _DEVICE_COMMANDS:
-        from paramugsy_tpu.utils.cache import enable_compilation_cache
-        from paramugsy_tpu.utils.platform import ensure_backend
+        # No fallback: JAX raises when the requested platform is absent.
+        import jax
 
-        ensure_backend()
+        from paramugsy_tpu.utils.cache import enable_compilation_cache
+
         enable_compilation_cache()
+        if "-distributed" in argv or argv[0] == "sge":
+            # Joins the process world before anything opens a device.
+            from paramugsy_tpu.runtime.dist import init_distributed
+
+            init_distributed()
+        dev = jax.local_devices()[0]
+        print(
+            f"device: {dev.platform} {dev.device_kind} x{jax.local_device_count()}"
+            f" (process {jax.process_index()} of {jax.process_count()})",
+            file=sys.stderr,
+        )
     if not argv:
         print(
             "usage: paramugsy-tpu {align|local|nucmer|mugsy|repeats|profiles|mafstat|"

@@ -1,6 +1,6 @@
 """Anchor clustering + chaining (the nucmer ``mgaps`` role).
 
-Two-level TPU-native design instead of the classic sequential greedy DP:
+Two-level device/host design instead of the classic sequential greedy DP:
 
 1. **Band clustering (device, fully parallel)** — seeds arrive sorted by
    (diagonal, qpos) from `find_seeds`.  We re-sort by (diagonal band, qpos)
@@ -27,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-BIG = jnp.int32(2**31 - 1)
+BIG = np.int32(2**31 - 1)  # NumPy: importing this module opens no device
 
 
 class Clusters(NamedTuple):

@@ -1,8 +1,7 @@
 """DP engine selection and usage accounting.
 
-Round 1 swallowed fallback exceptions silently (`except Exception: pass`
-around the native/Pallas paths), so a broken fast path degraded to the
-slow one with no trace.  This module centralizes the policy:
+A broken fast path must not degrade to the slow one without a trace.
+This module centralizes the policy:
 
 * `record()` counts which engine actually ran (tests pin the expectation
   that the native/device engines run when available);
@@ -10,14 +9,12 @@ slow one with no trace.  This module centralizes the policy:
 * genuine load failures of an *existing* native library raise instead of
   silently degrading (`ops.native.load`).
 
-Env knobs: PARAMUGSY_DEVICE_DP=1 forces the Pallas wavefront engine for
-long segments, =0 forces the host engines; unset auto-selects by backend
-(device DP on TPU, host otherwise).
+Long segments run on the device wavefront whenever JAX's default backend
+is an accelerator, and on the host banded engine on the CPU.
 """
 from __future__ import annotations
 
 import logging
-import os
 
 log = logging.getLogger("paramugsy.engines")
 
@@ -38,28 +35,16 @@ def reset_counts() -> None:
 
 
 def record_seedcluster(n: int = 1) -> None:
-    """Count fused seeding/clustering dispatches by backend — the pair
-    pipeline's heavy compute, so dp_engines shows where FLOPs went
-    rather than only the residual segment DPs."""
-    try:
-        import jax
+    """Count genome pairs through the fused seeding/clustering dispatch,
+    by backend — the pair pipeline's heavy compute, so the engine counts
+    show where the work went rather than only the segment DPs."""
+    import jax
 
-        backend = jax.default_backend()
-    except Exception:
-        backend = "cpu"
-    record(f"seedcluster-{backend}", n)
+    record(f"seedcluster-{jax.default_backend()}", n)
 
 
 def device_dp_enabled() -> bool:
     """Should long-segment extension run on the device?"""
-    v = os.environ.get("PARAMUGSY_DEVICE_DP")
-    if v == "1":
-        return True
-    if v == "0":
-        return False
-    try:
-        import jax
+    import jax
 
-        return jax.default_backend() == "tpu"
-    except Exception:  # jax unavailable/uninitializable: host path
-        return False
+    return jax.default_backend() != "cpu"

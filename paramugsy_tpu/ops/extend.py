@@ -6,12 +6,13 @@ cummax formulation: within a row,
 
     dp[j] = GAP*j + running_max(cand[k] - GAP*k)  for k <= j
 
-which turns the row's sequential left-gap dependency into a prefix scan —
-the same formulation the Pallas wavefront kernel uses on TPU.
+which turns the row's sequential left-gap dependency into a prefix scan.
 
-This module provides the NumPy reference implementation (used on host for
-small segments and in tests); `paramugsy_tpu.ops.pallas_extend` provides the
-TPU kernel for the hot path.
+This module holds the NumPy reference implementations and the host
+tracebacks, and routes segments to the engines: the native C++ full DP for
+short segments, and for long ones the device wavefront
+(`paramugsy_tpu.ops.wavefront`) on an accelerator or the C++ banded engine
+on the CPU.
 """
 from __future__ import annotations
 
@@ -80,25 +81,13 @@ def traceback_gaps(dirs_i: np.ndarray, a_len: int, b_len: int):
     Returns (ref_gap_runs, query_gap_runs, n_columns): 1-indexed runs in
     alignment-column space, plus total columns.
     """
-    i, j = a_len, b_len
-    cols: list[int] = []  # 0=match col, 1=ref gap (LEFT), 2=query gap (UP)
-    while i > 0 or j > 0:
-        if i == 0:
-            d = LEFT
-        elif j == 0:
-            d = UP
-        else:
-            d = dirs_i[i, j]
-        if d == DIAG:
-            cols.append(0)
-            i -= 1
-            j -= 1
-        elif d == UP:
-            cols.append(2)
-            i -= 1
-        else:
-            cols.append(1)
-            j -= 1
+    return _walk(a_len, b_len, lambda i, j: dirs_i[i, j])
+
+
+def _runs_of_cols(cols: list[int]):
+    """Walk-order column kinds (0 = match, 1 = ref gap, 2 = query gap) ->
+    (ref_gap_runs, query_gap_runs, n_columns), runs 1-indexed in
+    alignment-column space."""
     cols.reverse()
     n = len(cols)
     ref_runs: list[Range] = []
@@ -115,6 +104,66 @@ def traceback_gaps(dirs_i: np.ndarray, a_len: int, b_len: int):
                 start = idx
             kind = c
     return ref_runs, query_runs, n
+
+
+def _walk(a_len: int, b_len: int, code_at):
+    """Traceback from (a_len, b_len); ``code_at(i, j)`` gives the direction
+    of an interior cell.  Returns the runs of `_runs_of_cols`."""
+    i, j = a_len, b_len
+    cols: list[int] = []
+    while i > 0 or j > 0:
+        if i == 0:
+            d = LEFT
+        elif j == 0:
+            d = UP
+        else:
+            d = code_at(i, j)
+        if d == DIAG:
+            cols.append(0)
+            i -= 1
+            j -= 1
+        elif d == UP:
+            cols.append(2)
+            i -= 1
+        else:
+            cols.append(1)
+            j -= 1
+    return _runs_of_cols(cols)
+
+
+def traceback_band(dirs: np.ndarray, a_len: int, b_len: int, width: int):
+    """Traceback over banded direction rows ``dirs[i - 1, w]``, lane
+    w = j - i + width/2 (the layout of `banded_align_np`)."""
+    half = width // 2
+
+    def code_at(i, j):
+        w = j - i + half
+        if w < 0:
+            return UP
+        if w >= width:
+            return LEFT
+        return int(dirs[i - 1, w])
+
+    return _walk(a_len, b_len, code_at)
+
+
+def traceback_wavefront(dirs_packed: np.ndarray, a_len: int, b_len: int, width: int):
+    """Traceback over packed anti-diagonal directions of ONE pair
+    ([steps/16, width] int32; step d's code is
+    ``(dirs_packed[(d-1)//16, w] >> (2*((d-1)%16))) & 3``), the layout of
+    `wavefront.wavefront_dirs`."""
+    half = width // 2
+
+    def code_at(i, j):
+        w = j - i + half
+        if w <= 0:
+            return UP
+        if w >= width - 1:
+            return LEFT
+        s = i + j - 1
+        return (int(dirs_packed[s >> 4, w]) >> (2 * (s & 15))) & 3
+
+    return _walk(a_len, b_len, code_at)
 
 
 def align_segments(
@@ -188,8 +237,8 @@ def align_segments(
             dirs, _ = nw_align_batch(a, a_len, b, b_len, scoring)
             for bi, i in enumerate(idxs):
                 results[i] = traceback_gaps(dirs[bi], int(a_len[bi]), int(b_len[bi]))
-    # Long segments route to the banded engines: batched Pallas wavefront
-    # on the device (default on TPU), host C++/NumPy otherwise.
+    # Long segments route to the banded engines: the batched device
+    # wavefront on an accelerator, the host C++/NumPy engine on the CPU.
     long_idx = [i for i, r in enumerate(results) if r is None]
     if long_idx:
         from paramugsy_tpu.ops import engines
@@ -197,9 +246,8 @@ def align_segments(
         long_segs = [
             (np.asarray(segs[i][0]), np.asarray(segs[i][1])) for i in long_idx
         ]
-        outs = None
         if engines.device_dp_enabled():
-            from paramugsy_tpu.ops.pallas_extend import wavefront_align_many
+            from paramugsy_tpu.ops.wavefront import wavefront_align_many
 
             outs = wavefront_align_many(
                 long_segs,
@@ -208,7 +256,7 @@ def align_segments(
                 gap=scoring.gap,
             )
             engines.record("device-wavefront", len(long_segs))
-        if outs is None:
+        else:
             outs = [align_long_segment(a, b, scoring) for a, b in long_segs]
         for i, o in zip(long_idx, outs):
             results[i] = o
@@ -283,13 +331,11 @@ def align_segments_spans(
 def banded_align_np(
     a: np.ndarray, b: np.ndarray, width: int = 512, scoring: Scoring = Scoring()
 ):
-    """NumPy mirror of the Pallas banded kernel (ops.pallas_extend).
+    """NumPy mirror of the C++ banded engine (`pm_banded_align`).
 
     Same band layout and prefix-max closure, vectorized over lanes; used
     as the host fallback for segments too long for the full-DP buckets.
     """
-    from paramugsy_tpu.ops.pallas_extend import traceback_band
-
     a_len, b_len = len(a), len(b)
     if abs(a_len - b_len) >= width // 2:
         raise ValueError(
@@ -328,13 +374,9 @@ def banded_align_np(
 def align_long_segment(
     a: np.ndarray, b: np.ndarray, scoring: Scoring = Scoring()
 ):
-    """Route one long segment through the host banded engines.
-
-    (The device wavefront engine batches long segments in `align_segments`;
-    this single-segment path is the host side: native C++ banded first,
-    NumPy banded mirror as the last resort.  Band width grows with the
-    length difference.)
-    """
+    """Align one long segment with the host banded engines: native C++
+    first, the NumPy mirror as the last resort.  The band width doubles
+    from 512 until it covers the length difference."""
     from paramugsy_tpu.ops import engines
     from paramugsy_tpu.ops.native import banded_align_native
 

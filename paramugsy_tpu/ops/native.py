@@ -34,14 +34,16 @@ def _make(force: bool = False) -> bool:
             ["make", "-C", _NATIVE_DIR] + (["-B"] if force else []),
             check=True,
             capture_output=True,
+            text=True,
             timeout=120,
         )
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError) as e:
         import logging
 
         logging.getLogger("paramugsy.engines").warning(
-            "native build failed; using host NumPy fallbacks", exc_info=True
+            "native build failed; using host NumPy fallbacks: %s\n%s",
+            e, getattr(e, "stderr", "") or "",
         )
         return False
 
@@ -296,7 +298,7 @@ def wavefront_traceback_native(
 ):
     """Traceback of the packed wavefront dirs buffer for all pairs.
 
-    dirs_packed: [steps16, batch, width] int32 from ops.pallas_extend.
+    dirs_packed: [steps16, batch, width] int32 from ops.wavefront.
     Returns a list of (ref_runs, query_runs, n_columns), or None when the
     native library is unavailable.
     """

@@ -1,8 +1,8 @@
 """Collectives-based distributed pairwise phase (SURVEY P6 data plane).
 
 Replaces the reference's rsync-manifest data staging
-(lib/base/script_task.ml:63-93, scripts/sync_to.sh) with one ICI/DCN
-collective: the pair batch is sharded over the mesh's ``pairs`` axis,
+(lib/base/script_task.ml:63-93, scripts/sync_to.sh) with one device
+collective (NVLink within a host): the pair batch is sharded over the mesh's ``pairs`` axis,
 each device runs the fused seeding/clustering kernels on its shard, and
 an ``all_gather`` hands every host every pair's packed summary.  The
 host-side tail (unpack -> chain -> gap-extend -> delta entries) is the
@@ -144,7 +144,7 @@ def _phase_barrier(tag: str, timeout_s: float | None = None) -> None:
 def _exchange_blobs(blob: bytes) -> list[bytes]:
     """All-gather one byte blob per process over the host collective.
 
-    The DCN control-plane exchange for finished (tiny) results: lengths
+    The host-network control-plane exchange for finished (tiny) results: lengths
     first, then the max-length-padded payloads (every process holds
     n_proc x max_blob transiently — acceptable for delta-entry payloads,
     which are orders of magnitude smaller than the packed seed tensors).
@@ -269,8 +269,6 @@ def sharded_genome_pair_deltas(
             transfer_slice,
         )
 
-        from paramugsy_tpu.ops.seeding import _slice_compaction_default
-
         max_seeds = initial_max_seeds(cfg, rb, qb)
         shift = resolve_sample_shift(cfg, rb, qb)
         m_out, c_out = transfer_slice(cfg, shift, max_seeds)
@@ -281,9 +279,6 @@ def sharded_genome_pair_deltas(
             min_match=cfg.min_match, band=cfg.band,
             max_gap=cfg.max_gap, max_clusters=cfg.max_clusters,
             sample_shift=shift, m_out=m_out, c_out=c_out,
-            # Resolved OUTSIDE the jit trace, like the single-chip paths:
-            # the env override must take effect per call.
-            compact_slice=_slice_compaction_default(),
         )
         sh = NamedSharding(mesh, P("pairs"))
         _phase_barrier("pair-dispatch")

@@ -8,7 +8,7 @@ are
   all-pairs nucmer fan-out);
 * ``kdim``  — sharding of the k-mer sketch dimension for the guide-tree
   distance matmul (contraction over the sharded axis -> XLA inserts the
-  psum over ICI).
+  psum; on one host of H100s it runs over NVLink, all to all).
 """
 from __future__ import annotations
 

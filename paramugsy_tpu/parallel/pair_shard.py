@@ -5,7 +5,7 @@ scripts and rsync manifests (lib/base/job_processor.ml:128-154 +
 scripts/sync_to.sh).  Here a *batch of genome pairs* is a tensor sharded
 over the ``pairs`` mesh axis; each device runs the seeding + clustering
 kernels on its shard, and per-pair results are exchanged with an
-all_gather over ICI — after which every host holds every pair's packed
+all_gather over the device interconnect — after which every host holds every pair's packed
 summary and no filesystem hop is needed (the store remains for
 resume only).  The guide-tree distance matrix shards the sketch
 dimension (``kdim`` axis) so the Jaccard matmul contracts over a sharded
@@ -45,7 +45,6 @@ def make_sharded_packed_pair_step(
     sample_shift: int = 0,
     m_out: int | None = None,
     c_out: int | None = None,
-    compact_slice: bool | None = None,
     gather: bool = False,
 ):
     """Jitted step: [B, N] pair batches sharded over ``pairs`` -> packed
@@ -55,20 +54,20 @@ def make_sharded_packed_pair_step(
     all_gather; the default leaves it SHARDED over ``pairs`` so each host
     finishes (unpacks/chains/extends) only its own rows — the host tail
     scales with 1/hosts instead of being replicated (round 2 replicated
-    it), and the packed-seed ICI traffic disappears entirely.  Finished
+    it), and the packed-seed device traffic disappears entirely.  Finished
     delta entries are exchanged instead (collective.py), which are ~100x
     smaller.
 
     Per-shard compute is byte-identical to the single-chip batched path
     (`ops.seeding.seed_cluster_both_packed_batch`), so the host-side
-    unpack/chain/extend tail is shared between one chip and a pod.
+    unpack/chain/extend tail is shared between one GPU and many.
     """
     step = functools.partial(
         seed_cluster_both_packed_batch,
         k=k, max_seeds=max_seeds, unique_in_query=unique_in_query,
         min_match=min_match, band=band, max_gap=max_gap,
         max_clusters=max_clusters, sample_shift=sample_shift,
-        m_out=m_out, c_out=c_out, compact_slice=compact_slice,
+        m_out=m_out, c_out=c_out,
     )
 
     def shard_fn(refs, queries, q_lens):
@@ -132,7 +131,7 @@ def make_sharded_pair_step(
 
     The batch axis is sharded over the ``pairs`` mesh axis; outputs are
     all-gathered so every host sees every pair's summaries (the reference's
-    rsync-back of delta files, as one ICI collective).
+    rsync-back of delta files, as one device collective).
     """
     step = functools.partial(
         _pair_step, k=k, max_seeds=max_seeds, max_clusters=max_clusters
@@ -165,7 +164,8 @@ def make_sharded_pair_step(
 
 
 def make_sharded_distance_step(mesh: Mesh):
-    """Jaccard matrix with the sketch dimension sharded over ``kdim``.
+    """Intersection matrix with the sketch dimension sharded over ``kdim``
+    (`tree.distance.jaccard_of_intersections` turns it into Jaccard).
 
     sketches [G, D] with D sharded: the G x G matmul contracts over the
     sharded axis, produced with an explicit psum inside shard_map.
@@ -175,10 +175,7 @@ def make_sharded_distance_step(mesh: Mesh):
         inter_local = jnp.dot(
             sketches, sketches.T, preferred_element_type=jnp.float32
         )
-        inter = lax.psum(inter_local, "kdim")
-        sizes = jnp.diagonal(inter)
-        union = sizes[:, None] + sizes[None, :] - inter
-        return inter / jnp.maximum(union, 1.0)
+        return lax.psum(inter_local, "kdim")
 
     mapped = jax.shard_map(
         shard_fn,

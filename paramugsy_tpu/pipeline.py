@@ -86,7 +86,7 @@ def config_from_dict(d: dict) -> PipelineConfig:
     """Build a PipelineConfig from a plain dict (JSON config files).
 
     The reference injected per-cluster environment through a shell
-    template file (lib/base/script_task.ml:33-61); the TPU-native analog
+    template file (lib/base/script_task.ml:33-61); the analog here
     is a declarative config file: top-level keys set PipelineConfig
     fields, an ``align`` object sets AlignConfig fields, and
     ``align.scoring`` the DP scores.

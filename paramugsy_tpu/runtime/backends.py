@@ -12,9 +12,9 @@ Here the seam is a Backend protocol over Python callables:
   of local_interface.ml's 10x/5s retry loop;
 * RecordingBackend — the Test_server pattern: records every submission for
   single-process tests of multi-node logic;
-* (multi-host TPU slices connect through jax.distributed in
-  paramugsy_tpu.runtime.dist — the data plane is ICI collectives, not a
-  task backend.)
+* (multi-process runs connect through jax.distributed in
+  paramugsy_tpu.runtime.dist — the data plane is device collectives, not
+  a task backend.)
 """
 from __future__ import annotations
 

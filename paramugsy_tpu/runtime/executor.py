@@ -207,6 +207,13 @@ class JobExecutor:
         deltas = []
         for f in delta_futs:
             deltas.extend(f.result())
+        # The merge breaks ties by input order, so feed it the pairs in
+        # the job tree's order, however each pair arrived (computed here,
+        # cached, or waited for from another process): the output must
+        # not depend on the process count.
+        left_pos = {s: i for i, g in enumerate(left_names) for s in self.genomes[g].seqs}
+        right_pos = {s: i for i, g in enumerate(right_names) for s in self.genomes[g].seqs}
+        deltas.sort(key=lambda e: (left_pos[e.ref_name], right_pos[e.query_name]))
         names = left_names + right_names
         uid = self._next_uid()
         from paramugsy_tpu.utils.obs import METRICS
@@ -301,7 +308,7 @@ class JobExecutor:
         try:
             return self._process(tree, priority=0).result()
         finally:
-            # Join worker threads: daemon threads killed mid-TPU-call at
+            # Join worker threads: daemon threads killed mid-device-call at
             # interpreter teardown crash the device client.
             self.sched.stop(wait=True)
 

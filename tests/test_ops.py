@@ -444,7 +444,7 @@ class TestLongSegments:
 
     def test_banded_np_matches_full_dp(self):
         from paramugsy_tpu.ops.extend import Scoring, banded_align_np
-        from tests.test_pallas import brute_nw, path_score
+        from tests.test_dp import brute_nw, path_score
 
         rng = np.random.default_rng(11)
         a = rng.integers(0, 4, size=90).astype(np.int8)
@@ -709,42 +709,123 @@ class TestSampledEndExtension:
         qryn = np.array([4, 0, 1], np.int8)
         assert _extend_left(refn, qryn, 1, 1) == 0
 
+    @pytest.mark.parametrize(
+        "columns,want",
+        [
+            ("MMMX", 3),  # the exact run
+            ("XMMMMMM", 7),  # one mismatch, then 6 matches: gain 9
+            ("XMMMMM", 0),  # 5 matches gain only 7
+            ("MMXMM", 2),  # a chance match past the run does not count
+            ("MMXMMMMMMXXXXXMMMMMMMMMM", 9),  # X-drop ends the walk
+            ("NMMMMMMM", 8),  # N scores as a mismatch
+            ("", 0),
+        ],
+    )
+    def test_ungapped_extension(self, columns, want):
+        """Outward columns: M match, X mismatch, N an N in both."""
+        from paramugsy_tpu.ops.align_pair import _ungapped_extension
+        from paramugsy_tpu.ops.extend import Scoring
+
+        a = np.array([{"M": 0, "X": 0, "N": 4}[c] for c in columns], np.int8)
+        b = np.array([{"M": 0, "X": 1, "N": 4}[c] for c in columns], np.int8)
+        assert _ungapped_extension(a, b, Scoring()) == want
+
+    def test_entry_end_crosses_substitution(self):
+        """A substitution 10 bp before a homology's end (an inversion or
+        indel boundary) does not cut the entry there: the entry reaches
+        the end, as nucmer's does."""
+        from paramugsy_tpu.ops.align_pair import AlignConfig, align_pair
+
+        rng = np.random.default_rng(3)
+        n, end = 30_000, 20_000
+        ref = rng.integers(0, 4, n).astype(np.int8)
+        q = ref.copy()
+        q[end:] = (ref[end:] + 1) % 4  # every base past the end differs
+        q[end - 10] = (ref[end - 10] + 2) % 4
+        (e,) = align_pair(ref, q, "r", "q", AlignConfig())
+        assert (e.ref_range.start, e.ref_range.end) == (1, end)
+        assert (e.query_range.start, e.query_range.end) == (1, end)
+
+
+def brute_sampled_matches(ref, query, k, shift):
+    """(rpos, qpos, reverse) of every content-sampled canonical k-mer match
+    whose canonical k-mer occurs once in the ref (on either strand);
+    reverse matches in revcomp (strand-local) query coordinates."""
+    from collections import Counter
+
+    from paramugsy_tpu.ops.encode import encode
+
+    def canonical(seq):
+        codes = encode(seq).astype(np.uint64)
+        n = len(codes) - k + 1
+        fwd = np.zeros(n, np.uint64)
+        rc = np.zeros(n, np.uint64)
+        for j in range(k):
+            b = codes[j : j + n]
+            fwd = (fwd << np.uint64(2)) | b
+            rc |= (np.uint64(3) - b) << np.uint64(2 * j)
+        canon = np.minimum(fwd, rc)
+        h = (canon * np.uint64(2654435761)) & np.uint64(0xFFFFFFFF)
+        return canon, rc < fwd, (h >> np.uint64(32 - shift)) == 0
+
+    rc_, rs, _ = canonical(ref)
+    qc, qs, qkeep = canonical(query)
+    count = Counter(rc_.tolist())
+    where = {c: i for i, c in enumerate(rc_.tolist())}
+    out = set()
+    for j in np.flatnonzero(qkeep).tolist():
+        c = int(qc[j])
+        if count.get(c) == 1:
+            i = where[c]
+            rev = bool(rs[i] != qs[j])
+            out.add((i, len(query) - j - k if rev else j, rev))
+    return out
+
+
+def sampled_seeds_vs_brute(device=None):
+    """find_seeds_both with sampling (scatter compaction) on `device`,
+    expanded to k-mer matches, and the brute-force sampled matches."""
+    import jax
+    import jax.numpy as jnp
+
+    from paramugsy_tpu.ops.encode import encode
+    from paramugsy_tpu.ops.seeding import find_seeds_both
+
+    rng = np.random.default_rng(41)
+    n, k, shift = 30_000, 15, 2
+    ref = rand_dna(rng, n)
+    q = list(ref)
+    for i in rng.choice(n, n // 100, replace=False):
+        q[i] = "ACGT"[rng.integers(4)]
+    # a reverse-strand stretch, so both strands carry matches
+    comp = str.maketrans("ACGT", "TGCA")
+    q = "".join(q)
+    q = q[:20_000] + q[20_000:22_000].translate(comp)[::-1] + q[22_000:]
+    r_dev, q_dev = (jax.device_put(jnp.asarray(encode(x)), device) for x in (ref, q))
+    out = find_seeds_both(
+        r_dev, q_dev, jnp.int32(n),
+        k=k, max_seeds=8192, sample_shift=shift, merge_gap=0,
+    )
+    assert int(out.samp_over) == 0
+    assert 0 < int(out.n_runs) <= 8192
+    m = np.asarray(out.mask)
+    got = set()
+    for r, qp, ln, rev in zip(
+        *(np.asarray(x)[m].tolist() for x in (out.rpos, out.qpos, out.length, out.reverse))
+    ):
+        got.update((r + o, qp + o, bool(rev)) for o in range(ln - k + 1))
+    want = brute_sampled_matches(ref, q, k, shift)
+    assert any(rev for _, _, rev in want)
+    return got, want
+
 
 class TestCompactionForms:
-    """The two sampling-compaction forms (sort-then-slice, the TPU
-    default; scatter-then-sort, the CPU default) must produce identical
-    seeds — the slice form otherwise runs only on hardware and would
-    have zero CI coverage."""
-
     def test_slice_equals_scatter(self):
-        import jax
-        import jax.numpy as jnp
-
-        from paramugsy_tpu.ops.encode import encode
-        from paramugsy_tpu.ops.seeding import find_seeds_both
-
-        rng = np.random.default_rng(41)
-        n = 30_000
-        ref = rand_dna(rng, n)
-        q = list(ref)
-        for i in rng.choice(n, n // 100, replace=False):
-            q[i] = "ACGT"[rng.integers(4)]
-        ref_c = jnp.asarray(encode(ref))
-        q_c = jnp.asarray(encode("".join(q)))
-        outs = {}
-        for mode in (True, False):
-            s = find_seeds_both(
-                ref_c, q_c, jnp.int32(n),
-                k=15, max_seeds=4096, sample_shift=2, compact_slice=mode,
-            )
-            outs[mode] = jax.tree.map(np.asarray, s)
-        a, b = outs[True], outs[False]
-        assert int(a.n_runs) == int(b.n_runs) and int(a.n_runs) > 0
-        assert int(a.samp_over) == int(b.samp_over) == 0
-        for f in ("rpos", "qpos", "length", "reverse", "mask"):
-            np.testing.assert_array_equal(
-                getattr(a, f), getattr(b, f), err_msg=f
-            )
+        """The sampling compaction (scatter the kept k-mers into a
+        prefix, then sort; it replaced a sort-then-slice form) keeps
+        exactly the sampled brute-force matches on both strands."""
+        got, want = sampled_seeds_vs_brute()
+        assert got == want
 
 
 class TestTransferSliceOverflow:
